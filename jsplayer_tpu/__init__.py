@@ -1,4 +1,4 @@
-"""jsplayer_tpu — TPU-native batched video-decode framework.
+"""jsplayer_tpu — accelerator-native batched video-decode framework.
 
 From-scratch re-build of thedeemon/jsplayer's capabilities (ScreenPressor
 v2/v3/v4 + MSVideo1 AVI streaming playback) as a jax/XLA/Pallas + C++

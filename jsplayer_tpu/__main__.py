@@ -226,6 +226,10 @@ def cmd_serve(args) -> int:
 
 
 def main(argv=None) -> int:
+    from .pipeline.ingest import SP_DEVICE_PATHS
+    from .utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     ap = argparse.ArgumentParser(prog="jsplayer_tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -277,13 +281,11 @@ def main(argv=None) -> int:
     a = sub.add_parser("ingest", help="batched decode to model tensors")
     a.add_argument("files", nargs="+")
     a.add_argument("--window", type=int, default=16)
-    a.add_argument("--path", default="kmv",
-                   choices=("kmv", "bc", "kmv_sparse", "lane", "general",
-                            "pallas"),
+    a.add_argument("--path", default="kmv", choices=SP_DEVICE_PATHS,
                    help="SP device compose (kmv_sparse for link-fed hosts;"
                         " lane = device-entropy lane containers from"
-                        " `transcode --format lane`; pallas = fused general"
-                        " compose)")
+                        " `transcode --format lane`; general = gather"
+                        " compose for any command mix)")
     a.add_argument("--downscale", type=int, default=1,
                    help="power-of-two box downsample in the model epilogue")
     a.add_argument("--model-only", action="store_true",

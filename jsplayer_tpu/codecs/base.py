@@ -5,7 +5,7 @@ split: decoders decode into caller-provided uint32 numpy frame buffers
 (the Manager's Int32Array ring, Manager.hx:114-119) and report the
 previous-frame pointer + significant-change verdict (PFrameResult,
 IVideoCodec.hx:11-14).  The incremental-I-frame state machine
-(DecoderState, IVideoCodec.hx:5-9) is kept for API parity; on TPU an I-frame
+(DecoderState, IVideoCodec.hx:5-9) is kept for API parity; on the device an I-frame
 decodes in one shot so ``State()`` is always ZERO.
 """
 

@@ -1,12 +1,11 @@
 """Lane-container stream format — device-entropy re-encode of SP streams.
 
-BASELINE config 4 end-to-end (VERDICT round-2 item 1): a re-encoded stream
-whose payload the device decodes wholesale — after demux the host never
-touches entropy, removing the system bottleneck (host ~3-5k fps/core for
-legacy streams vs ~30k device fps).
+BASELINE config 4 end-to-end: a re-encoded stream whose payload the device
+decodes wholesale — after demux the host never touches entropy, which takes
+the host's serial entropy decode of legacy streams off the critical path.
 
-Design (TPU-first; the reference has no analog — its entropy is inherently
-host/serial, ANS.hx adaptive contexts):
+Design (device-first; the reference has no analog — its entropy is
+inherently host/serial, ANS.hx adaptive contexts):
 
 * Frame commands are the kmv compose's semantics (ScreenPressor.hx:302-484
   via kernels/sp_recon.derive_kmv_commands): per 16x16 block a type
@@ -14,19 +13,18 @@ host/serial, ANS.hx adaptive contexts):
   and K per-frame motion vectors.  Stored sparsely (active blocks only).
 * Payload pixels (data-block rect content) are serialized in 128-px
   LANE-ROW UNITS of the padded plane [Y, ceil(X/128)*128]: the device
-  rebuilds each frame's data plane with a ROW GATHER (free on TPU) —
+  rebuilds each frame's data plane with a ROW GATHER (contiguous rows) —
   no dynamic_update_slice chain, no 16x16 relayout, and FULL frames
   (keyframes) ride the identical machinery.
 * Unit pixel bytes ride one of two PAYLOAD MODES (per-window flag):
 
-  - **raw** (default since round 4): uncoded u24 byte-plane triplets
+  - **raw** (the default): uncoded u24 byte-plane triplets
     [U, 3, 128] — 3 B/pixel on the wire, ZERO device entropy work (the
-    unit build is a free reshape + combine).  Measured round 4: both
-    smaller AND faster than the rANS mode on every corpus, because the
-    renorm-aligned refill layout ships a fixed 2 B/SYMBOL (= 6 B/pixel)
-    regardless of entropy.
+    unit build is a free reshape + combine).  Smaller than the rANS mode
+    on the corpora, because the renorm-aligned refill layout ships a
+    fixed 2 B/SYMBOL (= 6 B/pixel) regardless of entropy.
   - **rans**: symbols entropy-coded with the renorm-aligned multi-lane
-    rANS (kernels/rans_lanes, ~2 Gsym/s on-device) under a per-window
+    rANS (kernels/rans_lanes, decoded on the device) under a per-window
     static frequency table.  Kept for layouts whose device-side bytes
     genuinely compress below 1/2 B/sym under a static table — the
     aligned refill schedule can never beat raw for ≥1-B/sym content,
@@ -40,7 +38,7 @@ host/serial, ANS.hx adaptive contexts):
 * Window-leading keyframes: in raw mode they are ordinary full-frame
   data paints riding the SAME unit machinery (3 B/px, no special case);
   in rans mode they ship as raw u32 init planes (4 B/px — entropy-coding
-  a keyframe measured both slower and larger, round 3).  Windows whose
+  a keyframe makes it larger).  Windows whose
   first frame fully paints the plane are flagged RESTART — their decode
   is carry-independent, which is the gop-axis sharding unit and the
   clip-seek restart point (the reference's keyframe-seek analog,
@@ -55,9 +53,8 @@ A container holds GOP-aligned windows; windows are independent decode
 chains when restart-flagged, which is what the transcoder emits for
 keyframe-led content.
 
-SIZE (measured, round 4): raw+deflate turns the round-3 numbers around
-— bench corpus 16.7 MB (rans, uncompressed) → well under the ≥3x-shrink
-bar; see BENCH_NOTES.md round-4 A/B table.
+SIZE: raw+deflate is the smallest wire form on the bench corpus (the
+uncompressed rans container is several times larger).
 
 Wire layout (little-endian):
 
@@ -82,7 +79,7 @@ Wire layout (little-endian):
                [payload unit indices u32[n_refs] if dedup flag]
              meta-deflated (bit5 set; the command/reference arrays
              deflate ~4.5x, a free win — the deflated terminal wire
-             remains payload-dominated, see BENCH_NOTES):
+             remains payload-dominated):
                per-frame unit REFERENCE counts u32[T]
                u32 meta_clen
                zlib( active blocks | unit plane-row ids | [unit indices] )
@@ -99,8 +96,8 @@ Wire layout (little-endian):
                      inside round 4 and never shipped — containers
                      written before bit6 existed parse unchanged.
                    — S-px spans of the unit rows deduped (8-px spans ≈
-                   glyph atoms; terminal payload 1.81 MB → ~0.39 MB,
-                   scripts/exp_lane_subunits.py); the parser expands
+                   glyph atoms; terminal payload 1.81 MB → ~0.39 MB);
+                   the parser expands
                    back to [U, 3, 128] so consumers are unchanged.
                    Emitted pick-smaller per window vs the plain layout.
              rans: freq i32[256] | states u32[n_lanes]
@@ -141,7 +138,7 @@ class LaneWindow:
     rect: np.ndarray             # [T, NB, 4] uint8 (block-local x1,y1,x2,y2)
     unit_rows: list              # per frame: np.ndarray of plane-row ids
     n_units: int                 # U — PAYLOAD unit count (deduped)
-    # unit-level dedup (round 4): identical payload units are stored once
+    # unit-level dedup: identical payload units are stored once
     # and referenced by index — cursor blinks, repeated paints, and flat
     # keyframe rows collapse (bench corpus 197x, terminal 2.1x fewer
     # units).  None = references are implicitly sequential (no dedup).
@@ -184,7 +181,7 @@ class LaneWindow:
 
     def row_index(self, Y: int, ncol: int):
         """Row-level dedup of the unit references (the device decode's
-        input shape since round 4 — kernels/lane_recon module docstring):
+        input shape — kernels/lane_recon module docstring):
 
           row_table [Ur, ncol] i32 — each unique plane row's per-128-px
             unit ids (row 'absent' slots are unit 0, masked out by the
@@ -194,8 +191,8 @@ class LaneWindow:
         The device assembles rows_unique [Ur, X] ONCE per window (the
         only relayout) and every frame then does a pure row gather —
         the [R,128]→[Y,X] per-frame reshape the slot layout paid was a
-        lane-dim-merging relayout (~2x 8.3 MB/frame extra traffic;
-        scripts/exp_lane_rowgather.py measured the fix +36% dense).
+        relayout into the minor dim (about two extra 8.3 MB plane passes
+        per frame).
 
         Untouched rows map to the all-zero tuple; only touched rows pay
         host work, and the window-wide dedup is ONE void-view np.unique
@@ -235,7 +232,7 @@ class LaneWindow:
             locs.append((t, uy))
         allv = np.concatenate(chunks, axis=0)
         # u64-hash the tuples so unique sorts integers, not 64-byte void
-        # keys (the void argsort was 8 of row_index's 10.8 ms/window);
+        # keys (the void argsort was most of row_index's time);
         # the representative-compare guard catches any 64-bit collision
         # and falls back to the exact lexicographic path
         h = np.zeros(allv.shape[0], dtype=np.uint64)
@@ -322,7 +319,7 @@ def derive_window(bts: np.ndarray, mv: np.ndarray, rect: np.ndarray,
     derive_kmv_commands grouping, same demotion rule), so the device lane
     compose is bit-exact with the dense-paycode path by construction.
 
-    payload_mode: "raw" (uncoded u24 unit bytes — the measured-default) or
+    payload_mode: "raw" (uncoded u24 unit bytes — the default) or
     "rans" (renorm-aligned lane entropy; see module docstring)."""
     if payload_mode not in ("raw", "rans"):
         raise ValueError(f"unknown payload_mode {payload_mode!r}")
@@ -412,7 +409,7 @@ def derive_window(bts: np.ndarray, mv: np.ndarray, rect: np.ndarray,
         unit_rows.append(rows)
         if rows.size:
             # unit values: whole-row absolute content (XOR/masked variants
-            # measured worse, scripts/exp_lane_xor.py), zero-padded past X;
+            # deflated worse), zero-padded past X;
             # refresh only the touched frame rows, then one contiguous
             # row gather
             yy = np.unique(rows // nxu)
@@ -486,8 +483,8 @@ _FLAG_DEDUP = 16      # explicit payload-unit indices (unit dedup)
 _FLAG_META = 32       # block/reference arrays zlib-deflated (see docstring)
 _FLAG_SUBUNIT = 64    # payload stored as deduped S-px sub-unit spans + ids
 
-# sub-unit span width: 8-px spans ≈ glyph atoms on screen content —
-# measured (scripts/exp_lane_subunits.py) the terminal corpus's 21,572
+# sub-unit span width: 8-px spans ≈ glyph atoms on screen content — the
+# terminal corpus's 21,572
 # unique 128-px units collapse to ~1,053 unique 8-px spans, cutting the
 # deflated payload section 1.81 MB → ~0.39 MB; S=16/32/64 all measured
 # worse on the id/payload trade.  Wire carries S so this can change
@@ -571,8 +568,7 @@ def _window_to_bytes(w: LaneWindow, K: int, n_lanes: int,
                     # same pick-smaller decision as below (sizes are
                     # deterministic), but high-entropy payloads whose
                     # spans don't repeat now skip the sort entirely
-                    # (dense-content transcode's hottest line after the
-                    # round-5 gather fix)
+                    # (dense-content transcode's hottest line)
                     sub = None
                 else:
                     # lex-sort just the UNIQUE records (hash order is
@@ -580,7 +576,7 @@ def _window_to_bytes(w: LaneWindow, K: int, n_lanes: int,
                     # spans cluster under lexicographic order).  Byte-
                     # lexicographic == numeric order of the record's
                     # big-endian u64 words, so np.lexsort over 3 integer
-                    # columns replaces the 24-byte void argsort (~20x)
+                    # columns replaces the much slower 24-byte void argsort
                     # with a byte-identical wire
                     bw = np.ascontiguousarray(blob).view(">u8").astype(
                         np.uint64).reshape(-1, 3 * S // 8)
@@ -616,8 +612,8 @@ def _window_to_bytes(w: LaneWindow, K: int, n_lanes: int,
         bulk += w.init_plane.astype("<u4").tobytes()
     if compress:
         # bulk at level 1: on screen content the win is in the run/repeat
-        # structure, not entropy squeezing — higher levels measured much
-        # slower for single-digit-% extra shrink (BENCH_NOTES round 4)
+        # structure, not entropy squeezing — higher levels cost much more
+        # host time for single-digit-% extra shrink
         flags |= _FLAG_DEFLATE
         comp = zlib.compress(bulk, 1)
         # raw-size prefilter: when span dedup gained nothing the sub-unit
@@ -638,8 +634,8 @@ def _window_to_bytes(w: LaneWindow, K: int, n_lanes: int,
             sub_hdr = b""
         bulk = struct.pack("<I", len(comp)) + comp
         # meta at level 6: the block/reference arrays deflate ~4.5x and
-        # are small enough that the better ratio is free (BENCH_NOTES
-        # round 4; the deflated terminal wire is still payload-dominated)
+        # are small enough that the better ratio is free (the deflated
+        # terminal wire is still payload-dominated)
         flags |= _FLAG_META
         mcomp = zlib.compress(bytes(blocks) + bytes(unit_rows) + unit_idx, 6)
         meta = (unit_counts.astype("<u4").tobytes()

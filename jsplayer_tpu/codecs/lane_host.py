@@ -58,7 +58,7 @@ def units_host(w: LaneWindow) -> np.ndarray:
 
     Memoized on the window: interactive seek re-enters the same window
     repeatedly (scrubbing), and the u8→u24 combine — or worse, the rans
-    lane decode — was paid on every entry (measured ~30% of lane seek
+    lane decode — was paid on every entry (a large share of lane seek
     latency on the terminal corpus)."""
     cached = getattr(w, "_units_cache", None)
     if cached is not None:
@@ -312,8 +312,7 @@ class LaneHostCodec(VideoCodec):
     its painted rects in place) and copies it into the Manager's ring
     buffer per decompress call.  The previous design cached a fresh copy
     of every changed frame per window; at 1080p those full-plane copies
-    dominated lane seek latency (Main.hx:1220-1226 probe: 77 ms median
-    vs the AVI path's 29 ms).  Backward scrubs inside a window re-enter
+    dominated lane seek latency (Main.hx:1220-1226 probe).  Backward scrubs inside a window re-enter
     it from its retained entry carry; stills cost nothing."""
 
     # plane-LRU budget: ~6 planes at 1080p, same order as the loader's
@@ -345,7 +344,8 @@ class LaneHostCodec(VideoCodec):
         self._carry: Optional[np.ndarray] = None  # last COMPLETED window's
         self._carry_wi = -2                       # final plane
         # native walk: the C compose replaces the per-frame numpy body
-        # (~4.5 ms/changed 1080p frame → rect memcpy); one pooled scatter
+        # (a full-plane numpy pass per changed frame → rect memcpy); one
+        # pooled scatter
         # scratch per codec (zero invariant preserved by the native call)
         self._use_native = _native.lane_compose_available()
         self._pool: Optional[np.ndarray] = None
@@ -356,8 +356,7 @@ class LaneHostCodec(VideoCodec):
         # the way; a far-from-key seek into a long dense window parks
         # stride snapshots on its forward walk.  Repeat seeks then start
         # from the nearest cached plane instead of replaying the chain or
-        # the window head (the dense-corpus seek max — BENCH_NOTES
-        # round-5 seek entry).  Both kinds are deterministic: a window's
+        # the window head (the dense-corpus seek max).  Both kinds are deterministic: a window's
         # entry state is a pure function of the container, so a cached
         # plane is valid for every future entry.  Exit carries are stable
         # references (every _open/window_carry copies its carry-in; a

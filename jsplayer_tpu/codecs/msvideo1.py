@@ -1,7 +1,7 @@
 """MSVideo1 (CRAM) decoder — host oracle + device-command parser.
 
 Bit-exact Python/NumPy re-implementation of the reference decoder
-(MSVideo1.hx:8-429).  This module is the *executable spec*: the TPU paint
+(MSVideo1.hx:8-429).  This module is the *executable spec*: the device paint
 kernel (kernels/msv1_paint.py) must match it exactly.
 
 Layout: frames are flat ``np.uint32[X*Y]`` pixel arrays in file order
@@ -320,7 +320,7 @@ class MSVideo1_8bit(MSVideo1_16bit):
 
 # ---------------------------------------------------------------------------
 # Device-command parser: opcode stream → dense per-block command tensors.
-# The TPU kernel consumes (block_type, sel, colors); see kernels/msv1_paint.py.
+# The device kernel consumes (block_type, sel, colors); see kernels/msv1_paint.py.
 # ---------------------------------------------------------------------------
 
 BLOCK_COPY = 0
@@ -362,7 +362,10 @@ def parse_commands(
             if is8 and a + b == 0:
                 break
             if (b & 0xFC) == 0x84:
-                skip = ((b - 0x84) << 8) + a
+                # a zero count makes the decoder's countdown (`count - 1`,
+                # MSVideo1.hx:131-133) start at -1 and never reach 0 again:
+                # the rest of the frame is skipped
+                skip = ((b - 0x84) << 8) + a or nb - bi
                 continue
             if b < 0x80:
                 if is8:

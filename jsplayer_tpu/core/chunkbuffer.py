@@ -1,6 +1,6 @@
 """Append-only chunked byte buffer with random access.
 
-TPU-native replacement for the reference's ``InputBuffer`` (InputBuffer.hx:7-163):
+Framework replacement for the reference's ``InputBuffer`` (InputBuffer.hx:7-163):
 network/storage chunks are appended as they arrive and readers address the
 logical byte stream by absolute position.  Unlike the reference we never
 mutate/join chunks — reads that straddle chunk boundaries are assembled into a

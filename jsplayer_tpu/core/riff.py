@@ -1,6 +1,6 @@
 """Incremental RIFF/AVI demuxer.
 
-TPU-native replacement for the reference's parser-combinator AVI grammar
+Framework replacement for the reference's parser-combinator AVI grammar
 (AVIParser.hx:142-184 over Parser.hx:85-344).  The combinator machinery exists
 in the reference only because JS cannot block on I/O — a parser parks its
 continuation in ``Parser.current`` on underrun (Parser.hx:53-57).  Here a

@@ -1,6 +1,6 @@
 """Byte-range data sources.
 
-TPU-native replacement for the reference's transport layer (PostStream.hx:18-196):
+Framework replacement for the reference's transport layer (PostStream.hx:18-196):
 the browser XHR byte-range POST protocol (``s=<start>&e=<end>`` headers,
 PostStream.LoadPart, PostStream.hx:140-159) maps here to range reads against
 local files or object storage.  Data is delivered in bounded chunks so the

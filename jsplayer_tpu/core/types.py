@@ -1,4 +1,4 @@
-"""Core data types for the TPU-native AVI decode framework.
+"""Core data types for the batched AVI decode framework.
 
 Parity notes: these mirror the reference's data model (VideoData.hx:6-91) —
 ``VideoInfo`` (VideoData.hx:82-91), ``CompressedFrame`` (VideoData.hx:68-73),

@@ -2,35 +2,33 @@
 
 BASELINE config 4 end-to-end: ONE jitted program per window does
   1. the payload-unit build, by mode (codecs/lane_format):
-     - raw (default since round 4): [U, 3, 128] u8 wire bytes → a free
+     - raw (the default): [U, 3, 128] u8 wire bytes → a free
        reshape + elementwise combine — zero entropy work;
      - rans: renorm-aligned multi-lane rANS decode of the symbols
-       (rans_lanes.decode_lanes_aligned, ~2 Gsym/s on v5e at N=4096),
-       then the same combine (byte-triplet symbol order),
+       (rans_lanes.decode_lanes_aligned), then the same combine
+       (byte-triplet symbol order),
   2. rows_from_units: assemble the window's UNIQUE data rows
      rows_unique [Ur, X] from the 128-px units (lane_format's
      row_index dedups each plane row's ncol-unit id tuple) — the ONE
-     lane-dim-merging relayout the whole window pays,
+     relayout into the minor (X) dimension the whole window pays,
   3. a lax.scan over frames where each step does a PURE ROW GATHER
      tp = take(rows_unique, row_idx[t]) and composes with
      block-broadcast types/rects and K motion rolls — the same pixel
      semantics as sp_recon's dense-paycode compose
      (ScreenPressor.hx:302-484 block model).
 
-Why rows, not unit slots: the round-3 shape gathered [R, 128] unit
-rows per frame and reshaped to [Y, X] — that reshape merges 15 sublane
-rows into the lane dim, a RELAYOUT costing ~2x 8.3 MB extra traffic
-per frame.  Measured on chip (scripts/exp_lane_rowgather.py): in-scan
-slot gather ~12.3k fps, planes hoisted (bc-shape) ~6.9k, row-level
-gather ~17.4k dense on the 1080p bench window — row gathers are the
-one cheap gather (BENCH_NOTES layout table), so pay the relayout once.
+Why rows, not unit slots: gathering [R, 128] unit rows per frame and
+reshaping to [Y, X] merges 15 rows of 128 into the minor dim — a
+RELAYOUT that adds about two extra 8.3 MB plane passes per frame.  A
+gather of whole rows reads contiguous memory, so the window pays the
+relayout once and each frame pays one row gather.
 
 Sharding: make_lane_decode_step shards the leading window axis over the
 mesh's dp axis, and — for RESTART (carry-independent) windows — over the
-gop axis too (SURVEY §2 GOP/context row; round 3 was dp-only).
+gop axis too (SURVEY §2 GOP/context row).
 
-No dynamic_update_slice chains (serial, ~2.8 us/tile) and no 16x16 block
-relayouts — the two measured TPU anti-patterns the sparse transport paid.
+No dynamic_update_slice chains (serial, one tile per step) and no 16x16
+block relayouts — the two costs the sparse transport pays.
 """
 
 from __future__ import annotations
@@ -80,8 +78,8 @@ def compose_frame_lane(prev: jax.Array, rows_unique: jax.Array,
     tp = jnp.take(rows_unique, row_idx, axis=0)      # [Y, X] row gather
 
     # block structure via the packed row map + rows-only expansion
-    # (sp_recon.bc_row_map: block_broadcast's lane split measured ~60 us
-    # per use at 1080p; the row expansion is ~7x cheaper)
+    # (sp_recon.bc_row_map: unlike block_broadcast, it never splits the
+    # minor dim)
     rowv = row_expand(bc_row_map(btype, rect, nby, nbx, X), Y, X)
     bt = rowv & 0xFF
     y1 = (rowv >> 8) & 0xFF

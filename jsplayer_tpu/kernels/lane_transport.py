@@ -8,17 +8,18 @@ crosses the host→device link compressed and is entropy-decoded ON DEVICE
 (SURVEY.md §2 "Ulysses-style lane parallelism" carried into the serving
 pipeline).
 
-Two wire layouts, different economics (measured, BENCH_NOTES round 2):
+Two wire layouts, different economics:
 
 * ``packed``  — the lanes' own byte rows, ≈ true compressed size
   (screen-content tiles compress far below 1 B/symbol).  Decode uses the
-  gather-based lockstep (~26 Msym/s) — the right trade when the LINK is
-  the wall (network/PCIe-fed serving), stacking on the sparse transport's
-  existing 20-70× transfer win.
+  gather-based lockstep — the right trade when the LINK is the wall
+  (network/PCIe-fed serving), stacking on the sparse transport's own
+  transfer saving.
 * ``aligned`` — the pre-simulated refill schedule (rans_lanes.
   layout_refills), exactly 2 B/lane/step shipped regardless of entropy,
-  decoded gather-free at ~2 Gsym/s (2-level search) — the right trade when the pack is
-  HBM-resident (re-encoded streams staged to device once).
+  decoded gather-free (2-level search) — the right trade when the pack
+  is resident in device memory (re-encoded streams staged to device
+  once).
 
 Both decode to identical tiles; parity is pinned against the raw-tile
 path.  Pixels are serialized as 3 little-endian bytes (24-bit content;
@@ -39,7 +40,7 @@ from . import rans_lanes
 
 
 def _pick_lanes(n_bytes: int) -> int:
-    """Lane count: enough parallel width to keep the VPU busy, small enough
+    """Lane count: enough parallel width to fill the vector units, small enough
     that short payloads don't drown in padding."""
     if n_bytes >= 1 << 20:
         return 2048

@@ -1,6 +1,6 @@
-"""MSVideo1 block paint — TPU device kernel.
+"""MSVideo1 block paint — device kernel.
 
-TPU-native re-design of the reference's per-pixel paint loop
+Device re-design of the reference's per-pixel paint loop
 (MSVideo1.hx:106-209, 293-393): the host parses the opcode stream into dense
 per-block command tensors (codecs/msvideo1.parse_commands) and the device
 paints *every* block of the frame in one fused gather —
@@ -11,7 +11,7 @@ paints *every* block of the frame in one fused gather —
 
 There is no scatter, no gather, and no data-dependent control flow: the
 8 colors resolve as one-hot selects (register ops) and XLA fuses the
-reshape and selects into a single VPU pass; the sequential P-frame
+reshape and selects into a single elementwise pass; the sequential P-frame
 dependency (prev-frame reads, MSVideo1.hx:74-84) is expressed as `lax.scan`
 over the time axis.  Batching over independent streams is `vmap` over a
 leading axis — the DP axis of SURVEY.md §2.
@@ -31,8 +31,8 @@ import jax.numpy as jnp
 
 def sel_to_plane(sel, Y: int, X: int):
     """Host helper: [..., NB, 16] block-ordered palette indices →
-    [..., Y, X] plane order (the device-side 4x4 relayout measured 2x the
-    whole kernel's cost on TPU — tiny trailing dims fight the 8x128 tile).
+    [..., Y, X] plane order (done on the host: a device-side 4x4 relayout
+    works on tiny trailing dims and costs more than the paint itself).
     Works on numpy or jnp arrays."""
     lead = sel.shape[:-2]
     nby, nbx = Y // 4, X // 4
@@ -50,10 +50,9 @@ def paint_frame(
 ) -> jax.Array:
     """Paint one frame's blocks over `prev`; returns [Y, X] uint32.
 
-    One-hot selects over the 8 block colors instead of take_along_axis
-    (the 8-way gather measured 2.6x slower: 386 vs 1019 fps at 640x480)
-    and sel arrives PLANE-ordered from the host (the on-device 4x4
-    relayout measured another 2x: 1019 vs 2110 fps)."""
+    One-hot selects over the 8 block colors instead of an 8-way
+    take_along_axis gather, and sel arrives PLANE-ordered from the host
+    (no on-device 4x4 relayout)."""
     Y, X = prev.shape
     nby, nbx = Y // 4, X // 4
     paint_mask = (btype > 0).reshape(nby, 1, nbx, 1)

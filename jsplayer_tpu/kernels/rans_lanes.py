@@ -6,7 +6,7 @@ parts").  For *legacy* streams the framework therefore decodes entropy on the
 host (native/spdec.cpp).  This module is the lane-parallel alternative for
 streams we re-encode ourselves: symbols are distributed round-robin over N
 independent rANS lanes with a *static* (per-chunk) frequency table, so all N
-states advance in lockstep on the VPU — the SURVEY §2 "Ulysses-style lane
+states advance in lockstep as one vector — the SURVEY §2 "Ulysses-style lane
 parallelism" build target (the reference's analog is the B=131072-symbol
 stream reinit, ANS.hx:10, which already marks entropy-state boundaries).
 
@@ -18,20 +18,19 @@ Two layouts exist:
 
 * **packed** (:func:`decode_lanes`): each lane owns a contiguous byte row
   and refills at its own divergent position — two ``take_along_axis``
-  gathers per step.  TPU has no efficient per-lane byte gather, so this
-  measures ~26 Msym/s FLAT in lane count (scan-step latency bound).
+  gathers per step, so each scan step waits on two dependent gathers.
 * **renorm-aligned** (:func:`decode_lanes_aligned`): the refill pattern
   is a deterministic function of the stream, so the host lays the refill
   bytes out per lockstep step (:func:`layout_refills`) and the scan
-  consumes them as contiguous inputs; the symbol search is the round-3
-  TWO-LEVEL form (16-bucket compare + one-hot [N,16]@[16,16] MXU dot +
-  16-wide resolve).  Zero gathers — measured **~2,050 Msym/s at N=4096**
-  on v5e (989/1,475/2,050/2,185 at N=1024/2048/4096/8192).  Cost: a
-  fixed ~2 B/lane/step regardless of entropy — up to ~10-20x the true
+  consumes them as contiguous inputs; the symbol search is a TWO-LEVEL
+  form (16-bucket compare + one-hot [N,16]@[16,16] f32 dot at
+  ``precision=HIGHEST`` + 16-wide resolve).  Zero gathers.  Cost: a
+  fixed ~2 B/lane/step regardless of entropy — many times the true
   entropy size on highly compressible screen content (see
   codecs/lane_format's size-trade note).  This is the production
   device-entropy path for re-encoded streams; packed remains the
-  minimal-transfer variant.
+  minimal-transfer variant.  Whether a table gather beats the one-hot
+  dot on the GPU is not measured yet.
 
 Legacy adaptive-context streams (the reference format) still decode on
 host — their symbol-serial context chain is not lane-decomposable — and
@@ -145,7 +144,7 @@ def roundtrip_decode(lane_bytes, init_states, freq, n_symbols, n_lanes):
 
 
 # ---------------------------------------------------------------------------
-# Renorm-aligned layout (round-2, VERDICT item 7): zero-gather lockstep decode
+# Renorm-aligned layout: zero-gather lockstep decode
 # ---------------------------------------------------------------------------
 
 def layout_refills(lane_bytes: np.ndarray, init_states: np.ndarray,
@@ -157,12 +156,12 @@ def layout_refills(lane_bytes: np.ndarray, init_states: np.ndarray,
     each step's refill bytes in a dense row.  The device scan then consumes
     them as scan inputs — contiguous [N, 2]-byte reads per step — instead
     of per-lane ``take_along_axis`` gathers at divergent positions, which
-    were the measured bottleneck (~26 Msym/s, latency-bound).  Unused slots
-    are 0 (the decoder's ``need`` masks skip them in lockstep with this
-    simulation).  Cost: a fixed ~2 B/lane/step shipped regardless of
-    entropy — cheap vs ~1 B/sym incompressible data, up to ~10-20x on
-    highly compressible screen content (codecs/lane_format size note);
-    the buy is gather-free decode at Gsym/s.
+    leave each step waiting on dependent loads.  Unused slots are 0 (the
+    decoder's ``need`` masks skip them in lockstep with this simulation).
+    Cost: a fixed ~2 B/lane/step shipped regardless of entropy — cheap vs
+    ~1 B/sym incompressible data, many times the entropy size on highly
+    compressible screen content (codecs/lane_format size note); the buy is
+    a gather-free decode.
     """
     cum = np.zeros(257, dtype=np.uint64)
     cum[1:] = np.cumsum(freq.astype(np.uint64))
@@ -199,20 +198,18 @@ def decode_lanes_aligned(
 ) -> jax.Array:
     """Gather-free lockstep decode over the renorm-aligned layout.
 
-    Structural moves, each measured on-chip:
+    Structural moves:
 
       * refill bytes arrive as scan inputs (contiguous rows) instead of two
-        per-lane byte gathers at divergent stream positions (26 → 376
-        Msym/s, round 2);
-      * TWO-LEVEL symbol search (round 3): a [N,16] compare picks the
-        16-symbol bucket, a one-hot [N,16] @ [16,16] f32 MXU matmul
-        (precision=HIGHEST — values < 2^12, exact) fetches the bucket's
-        cumfreq/freq rows, and a second [N,16] compare + one-hot reduce
-        resolves the symbol.  Replaces the [N,256] compare matrix + two
-        256-wide masked reductions (~770 VPU ops/symbol): 307 → 1,475
-        Msym/s at N=2048.  A per-lane row-gather variant of the bucket
-        fetch measured SLOWER than the 1-level baseline (245 Msym/s) —
-        small-table gathers lose to the MXU one-hot dot.
+        per-lane byte gathers at divergent stream positions;
+      * TWO-LEVEL symbol search: a [N,16] compare picks the 16-symbol
+        bucket, a one-hot [N,16] @ [16,16] f32 matmul (precision=HIGHEST
+        — values ≤ 2^12, exact; a TF32 product would round them) fetches
+        the bucket's cumfreq/freq rows, and a second [N,16] compare +
+        one-hot reduce resolves the symbol.  Replaces the [N,256] compare
+        matrix + two 256-wide masked reductions.  A per-lane row gather of
+        the bucket is the alternative; which one is faster on the GPU is
+        not measured.
 
     → symbols [n_steps, N] uint8."""
     cumfreq = jnp.concatenate([jnp.zeros(1, jnp.int32),

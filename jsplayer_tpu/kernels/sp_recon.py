@@ -1,6 +1,6 @@
-"""ScreenPressor frame reconstruction — TPU device kernels.
+"""ScreenPressor frame reconstruction — device kernels.
 
-TPU-native split of the reference's DecompressP (ScreenPressor.hx:302-484):
+Host/device split of the reference's DecompressP (ScreenPressor.hx:302-484):
 the *serial* entropy + predictor stage runs on host (codecs/screenpressor.py
 or the native decoder) and emits per-frame command tensors; the *memory-heavy*
 frame composition runs on device:
@@ -9,27 +9,26 @@ frame composition runs on device:
              = payload[y,x]       if pixel in a data block's rect
              = prev[y,x]          otherwise (copy / outside subrect)
 
-Implementations, ranked on-chip (BENCH_NOTES.md):
+Implementations (none has been timed on the GPU yet; chip_smoke.py's
+Phase E times the first two composes on one 1080p window):
   * **kmv** (production): the host groups motion blocks by distinct vector
     into K slots; the device composes with `jnp.roll` + selects over a
-    single packed u32 paycode plane (pixel|type|kslot) — gather-free, ~21k
-    fps/chip @1080p, ~31k delivered with still-elision (`compact_changed`).
-    `prepare_kmv`/`prepare_kmv_sparse` have native C++ twins that emit the
-    transport during decode (native/spdec.cpp sp_decompress_kmv*).
+    single packed u32 paycode plane (pixel|type|kslot) — gather-free;
+    still-elision (`compact_changed`) keeps unchanged frames out of the
+    scan.  `prepare_kmv`/`prepare_kmv_sparse` have native C++ twins that
+    emit the transport during decode (native/spdec.cpp sp_decompress_kmv*).
   * **kmv-sparse**: per-block codes + final-content payload tiles — same
     compose plus a dynamic_update_slice tile pass; built for link-fed
-    serving (~0.4 MB/frame vs 8.3 dense), slightly slower in HBM.
+    serving (tens of KB per typical frame instead of the 8.3 MB plane).
   * the general XLA path here (`compose_frame`): per-block commands expand
     to per-pixel maps via *structured broadcasts* (16×16 tiles); the motion
-    read is a per-pixel gather — fully general, 61 fps @1080p.
-  * Pallas variants (kernels/sp_motion_pallas.py, sp_motion_mxu.py): see
-    those modules; the MXU shuffle is the validated high-K fallback.
+    read is a per-pixel gather — fully general.
 
 The P-chain's true data dependency (prev-frame reads, ScreenPressor.hx:379,
 404,442,472) is a `lax.scan` carry.  Batching over streams UNROLLS in
 Python — never vmap the kmv scan (batched-dynamic roll shifts lower to
-gathers, measured 15× slower).  Arbitrary frame sizes work (1080p runs
-unpadded); block maps are ceil-divided and broadcasts crop.
+gathers).  Arbitrary frame sizes work (1080p runs unpadded); block maps
+are ceil-divided and broadcasts crop.
 """
 
 from __future__ import annotations
@@ -174,7 +173,7 @@ def compose_frame_kmv(prev, paycode, mvk):
     """Single-input compose: paycode packs pixel (24b) | type (2b: 0 copy,
     1 data, 2 motion) | k-slot (3b) into one u32 — one streamed read per
     source instead of separate mask/group planes (the select masks are
-    register-resident bit tests, so per-frame HBM traffic is paycode + prev
+    register-resident bit tests, so per-frame memory traffic is paycode + prev
     + out ≈ 3 planes)."""
     ptype = (paycode >> 24) & 3
     payload = paycode & jnp.uint32(0x00FFFFFF)
@@ -193,9 +192,9 @@ def _scan_decode_kmv(init_frame, paycode, mvk, changed):
 
     def step(prev, inp):
         pc, mk, chg = inp
-        # NOTE: a lax.cond skip-stills branch measured SLOWER than the
-        # unconditional compose+where on TPU (cond-in-scan overhead exceeds
-        # the saved traffic), so the still-reuse stays a select
+        # the still-reuse is a select, not a lax.cond skip branch: stills
+        # that matter are elided before the scan (compact_changed), and a
+        # cond inside the scan body costs a control-flow round trip per step
         out = jnp.where(chg, compose_frame_kmv(prev, pc, mk), prev)
         return out, out
 
@@ -257,8 +256,8 @@ def decode_sequence_kmv(init_frame, paycode, mvk, changed):
 # u32 plane carries ONLY data-rect pixels: bytes outside data rects are
 # never read, so the host fill writes just the data pixels — no clears, no
 # motion fills, no dirty state (fill_paycode_p's cost collapses on
-# motion/scroll content, the VERDICT round-2 item-5 idea taken to its
-# conclusion).  Same per-frame HBM traffic as kmv (one plane read).
+# motion/scroll content).  Same per-frame device traffic as kmv (one
+# plane read).
 
 def prepare_bc(bts, mv, rect, payload, K: int = 4):
     """Host prep (numpy reference): → (plane [T,Y,X] u32, bcode [T,NB] u8,
@@ -299,9 +298,9 @@ def bc_row_map(bcode, rect, nby: int, nbx: int, X: int):
 
     Built ON DEVICE from the tiny [NB] arrays — all ops touch ≤NBx16
     elements.  The per-pixel expansion is then rows-only (see
-    row_expand): block_broadcast's lane-dim (nbx,16) split measured
-    ~60 us/frame at 1080p, 7x the rows-only expansion, and the original
-    [Y,X,4] rect broadcast another 3x on top (lane-minor trailing dim)."""
+    row_expand): it never splits the minor (X) dimension the way
+    block_broadcast's (nbx,16) split does, and never builds a [Y,X,4]
+    rect broadcast with a tiny trailing dim."""
     bt = bcode.reshape(nby, nbx).astype(jnp.uint32)
     r = rect.reshape(nby, nbx, 4).astype(jnp.uint32)
     lx = jax.lax.broadcasted_iota(jnp.uint32, (nby, nbx, 16), 2)
@@ -313,8 +312,8 @@ def bc_row_map(bcode, rect, nby: int, nbx: int, X: int):
 
 
 def row_expand(rows, Y: int, X: int):
-    """[nby, X] → [Y, X]: repeat each row 16x (sublane-merging reshape —
-    contiguous, cheap; never splits the lane dim)."""
+    """[nby, X] → [Y, X]: repeat each row 16x (a reshape that merges major
+    dims — contiguous, cheap; never splits the minor dim)."""
     nby = rows.shape[0]
     v = jnp.broadcast_to(rows[:, None, :], (nby, 16, X))
     return v.reshape(nby * 16, X)[:Y]
@@ -496,16 +495,13 @@ def _model_emit(model_kw):
     """(in-scan emit fn, post-scan finish fn) for the fused model path.
 
     downscale == 2 rides the packed-plane split: the scan emits ONE packed
-    [H/2, W/2] i32 plane per frame (rgb_convert.ds2_pack — Pallas on TPU)
+    [H/2, W/2] i32 plane per frame (rgb_convert.ds2_pack, plain XLA)
     with the vertical flip applied as a ROW GATHER on the small plane
     inside the scan, and the unpack/normalize/NHWC runs once on the small
-    stack outside behind an optimization_barrier.  Each piece is measured
-    (scripts/exp_unpack*.py): the in-scan to_model_input epilogue was the
-    fused path's whole gap (13.9k vs 31k fps, BENCH_r02); packed emit runs
-    the scan at full decode speed; jnp.flip costs ~44 us/frame vs ~free
-    for the row gather; without the barrier XLA's scan/unpack co-schedule
-    measured 8k vs 21.8k fps.  Other downscale factors keep the original
-    in-scan to_model_input."""
+    stack outside behind an optimization_barrier, which keeps XLA from
+    co-scheduling the unpack into the scan body.  The scan thus carries
+    the smallest per-frame product.  Other downscale factors keep the
+    original in-scan to_model_input."""
     from .rgb_convert import ds2_pack, to_model_input, unpack_ds2
 
     packed = model_kw.pop("packed", False) if isinstance(model_kw, dict) \
@@ -575,9 +571,8 @@ def decode_batch_kmv(init_frames, paycode, mvk, changed):
     changed [B,T] → frames [B,T,Y,X].
 
     Unrolled over B, NOT vmapped: under vmap the per-stream roll shifts
-    become batched-dynamic and XLA lowers them to gathers — measured 15x
-    slower at B=4 (4k vs 61k total fps @1080p).  Unrolled scans also
-    overlap across streams within one dispatch."""
+    become batched-dynamic and XLA lowers them to gathers.  Unrolled scans
+    also overlap across streams within one dispatch."""
     outs = [_scan_decode_kmv(init_frames[b], paycode[b], mvk[b], changed[b])
             for b in range(paycode.shape[0])]
     return jnp.stack(outs)
@@ -623,16 +618,14 @@ def decode_sequence_kmv_compact_unrolled(init_frame, paycode, mvk,
                                          unroll: int = 4):
     """Compact kmv scan with `unroll` composes per scan step.
 
-    MEASURED NEGATIVE RESULT (kept as documentation): the theory was that
-    chaining U composes per step would keep intermediate frames in VMEM
-    and drop traffic from 3 planes/frame toward 2 + 1/U.  On v5e at 1080p
-    it is SLOWER (U=1: 32.2k, U=2: 24.9k, U=4: 22.7k delivered fps,
-    honest probe) — an 8.3 MB frame plus the K-roll temporaries exceeds
-    the VMEM working set, so XLA spills the intermediates to HBM anyway
-    and the grouped ys writes only add overhead.  The 1-frame-per-step
-    scan (decode_sequence_kmv_compact) is the production path.  T must
-    divide by `unroll`; zero paycode pads are exact pass-throughs
-    (ptype==copy everywhere)."""
+    An experiment, not the production path: chaining U composes per step
+    could keep intermediate frames on chip and drop traffic from 3
+    planes/frame toward 2 + 1/U, but an 8.3 MB frame plus the K-roll
+    temporaries outgrows on-chip memory, so the intermediates go back to
+    device memory and the grouped ys writes only add work.  The
+    1-frame-per-step scan (decode_sequence_kmv_compact) is the production
+    path.  T must divide by `unroll`; zero paycode pads are exact
+    pass-throughs (ptype==copy everywhere)."""
     T = paycode.shape[0]
     assert T % unroll == 0, (T, unroll)
 
@@ -657,9 +650,9 @@ def decode_sequence_kmv_compact_unrolled(init_frame, paycode, mvk,
 #
 # The dense kmv path reads a full (Y,X) u32 paycode plane per frame even
 # when only a handful of blocks carry data.  Here the per-block codes stay
-# per-block ([NB] broadcast on device — structured broadcasts are free on
-# TPU) and payload travels as M final-content 16x16 tiles applied with
-# dynamic_update_slice, so per-frame HBM traffic drops to prev + out + eps.
+# per-block ([NB] broadcast on device — structured broadcasts fuse into
+# their consumer) and payload travels as M final-content 16x16 tiles applied
+# with dynamic_update_slice, so per-frame traffic drops to prev + out + eps.
 # Correctness hinges on `payload` being the fully decoded frame (the host
 # decoder's output): a tile is the block's FINAL pixels, so overwriting the
 # whole block is exact even for subrect blocks (outside-rect pixels in the
@@ -686,8 +679,7 @@ def prepare_kmv_sparse(bts, mv, rect, payload, K: int = 4, M: int | None = None,
     # The sparse compose rolls WHOLE blocks (bcode is per block), but bts 4
     # motion is rect-limited: a slot is safe iff the full-block roll
     # reproduces the decoded block (256-pixel compare vs payload[t-1] per
-    # motion block — the whole-frame roll+reduction variant measured 2 s
-    # per 64-frame 1080p window; this is ~50 ms)
+    # motion block — much cheaper than rolling and comparing whole frames)
     pay = payload & _np.uint32(0x00FFFFFF)
     safe = _np.zeros((T, NB), dtype=bool)
     prev0 = None if prev0 is None else (prev0 & _np.uint32(0x00FFFFFF))
@@ -759,9 +751,9 @@ def decode_batch_kmv_sparse_ragged(init_frames, bcode, mvk, tiles_flat,
                                    tile_idx, tile_yx, changed):
     """Ragged tile transport: tiles ship as ONE flat [S,256] u32 array of
     real tiles (plus per-frame pad rows) and tile_idx [B,T,M] maps each
-    scan slot to its row — the padded-per-frame layout wastes ~3.5x
-    transfer on mixed content (every frame pads to the window max).  The
-    device repack is a row gather of 1 KB rows, measured ~free."""
+    scan slot to its row — the padded-per-frame layout pads every frame to
+    the window max, which multiplies the transfer on mixed content.  The
+    device repack is a row gather of 1 KB rows."""
     B, T, M = tile_idx.shape
     Y, X = init_frames.shape[-2:]
     tiles = jnp.take(tiles_flat, tile_idx.reshape(-1), axis=0)
@@ -774,10 +766,10 @@ def decode_batch_kmv_sparse_ragged(init_frames, bcode, mvk, tiles_flat,
 def decode_batch_kmv_sparse(init_frames, bcode, mvk, tiles, tile_yx, changed):
     """Batched sparse-kmv scan (unrolled over B — see decode_batch_kmv).
 
-    The sparse transport exists for the HOST->DEVICE link, not for HBM: the
-    dense paycode plane is 8.3 MB/frame at 1080p while typical screen
-    content needs ~50 KB of tiles + block codes — on a PCIe- (or tunnel-)
-    fed serving host the transfer dominates end-to-end throughput."""
+    The sparse transport exists for the HOST->DEVICE link, not for device
+    memory: the dense paycode plane is 8.3 MB/frame at 1080p while typical
+    screen content needs tens of KB of tiles + block codes — on a PCIe- or
+    network-fed serving host the transfer dominates end-to-end throughput."""
     outs = [_scan_decode_kmv_sparse(init_frames[b], bcode[b], mvk[b],
                                     tiles[b], tile_yx[b], changed[b])
             for b in range(bcode.shape[0])]

@@ -1,24 +1,22 @@
-"""Sparse payload transport: data-rect tiles + MXU one-hot scatter.
+"""Sparse payload transport: data-rect tiles + an integer block scatter.
 
 The dense command layout ships a full [Y, X] u32 payload plane per frame even
-though only data-block rects carry information — at 10k fps that is ~80 GB/s
-of host→device traffic, far beyond PCIe.  This module packs only the painted
-blocks:
+though only data-block rects carry information.  This module packs only the
+painted blocks:
 
   host:   payload [Y, X] + bts → tiles [M, 256] u32 (one 16×16 tile per
           active block, M padded to a bucket size) + tile_block [M] i32
-  device: dense[NB, 256] = onehot(block→tile) @ tiles — the MXU as a scatter
-          engine (exact in f32: pixels are 24-bit, ScreenPressor.hx:189),
-          then the usual reshape to [Y, X].
+  device: dense[NB, 256] = zeros.at[tile_block].set(tiles) — an integer
+          scatter, exact for any u32 pixel — then the usual reshape to
+          [Y, X].
 
-Per-frame traffic becomes ~activity-proportional: tiles (M·1KB) + indices,
-e.g. 15% active blocks at 1080p ≈ 1.2 MB instead of 8.3 MB.
+Per-frame traffic becomes activity-proportional: tiles (M·1KB) + indices
+instead of the full plane (8.3 MB at 1080p).
 
 Status: the production sparse serving path is kernels/sp_recon's kmv-sparse
 transport (ragged flat tiles + dynamic_update_slice, fed by the native
-decoder — see pipeline/ingest).  This module remains the MXU-scatter
-alternative for payload-only workloads and as the measured reference for
-one-hot-matmul scatter on TPU.
+decoder — see pipeline/ingest).  This module remains the scatter
+alternative for payload-only workloads.
 """
 
 from __future__ import annotations
@@ -61,12 +59,11 @@ def pack_sequence(payload: np.ndarray, bts: np.ndarray, m_max: int):
 def unpack_payload(tiles: jax.Array, tile_block: jax.Array, nb: int,
                    Y: int, X: int) -> jax.Array:
     """Device reconstruct: → dense payload [Y, X] u32 (zeros outside data
-    blocks).  onehot[NB, M] @ tiles[M, 256] on the MXU."""
-    m = tiles.shape[0]
-    onehot = (tile_block[None, :] == jnp.arange(nb)[:, None]).astype(jnp.float32)
-    dense = jnp.dot(onehot, tiles.astype(jnp.float32),
-                    preferred_element_type=jnp.float32)  # [NB, 256]
-    dense = dense.astype(jnp.uint32)
+    blocks).  Padding entries (tile_block < 0) are routed out of range and
+    dropped; no float arithmetic touches the pixels."""
+    rows = jnp.where(tile_block < 0, nb, tile_block)
+    dense = jnp.zeros((nb, 256), dtype=jnp.uint32).at[rows].set(
+        tiles.astype(jnp.uint32), mode="drop")
     nbx = X // 16
     return (dense.reshape(Y // 16, nbx, 16, 16)
             .transpose(0, 2, 1, 3).reshape(Y, X))

@@ -1,9 +1,8 @@
 """ctypes bindings for ffshim.cpp — the system-FFmpeg cross-validation shim.
 
-Purpose (VERDICT round-1 Missing #1): FFmpeg ships *independent*
-implementations of both reference codecs — ``msvideo1`` (CRAM,
-``MSVideo1.hx``) and ``scpr`` (ScreenPressor v1/v2/v3,
-``ScreenPressor.hx``) — plus an msvideo1 *encoder*.  This module lets the
+Purpose: FFmpeg ships *independent* implementations of both reference
+codecs — ``msvideo1`` (CRAM, ``MSVideo1.hx``) and ``scpr`` (ScreenPressor
+v1/v2/v3, ``ScreenPressor.hx``) — plus an msvideo1 *encoder*.  This module lets the
 test suite decode our encoders' streams with FFmpeg and our decoders with
 genuine third-party streams, breaking the oracle↔encoder self-reference.
 
@@ -20,7 +19,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,15 +31,6 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["make", "-C", _DIR, "libffshim.so"], check=True,
-                       capture_output=True)
-        return True
-    except Exception:
-        return False
-
-
 def load() -> Optional[ctypes.CDLL]:
     global _lib, _tried
     if _lib is not None:
@@ -49,10 +38,10 @@ def load() -> Optional[ctypes.CDLL]:
     if _tried:
         return None
     _tried = True
-    if not os.path.exists(_LIB_PATH) or (
-            os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH)):
-        if not _build():
-            return None
+    from . import build_if_stale
+
+    if not build_if_stale("libffshim.so", _SRC_PATH):
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:

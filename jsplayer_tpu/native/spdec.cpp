@@ -33,10 +33,10 @@ namespace {
 constexpr uint32_t RC_TOP = 1u << 24;
 constexpr uint32_t RC_BOT = 1u << 16;
 
-// calloc-backed u32 frame buffer: fresh zero PAGES fault lazily (~20x
-// cheaper than vector's explicit zero-fill of 8.3 MB at 1080p — measured
-// 2.5 ms/buffer, 25% of short-GOP workloads where decoders are created
-// per GOP row, e.g. gop_split).
+// calloc-backed u32 frame buffer: fresh zero PAGES fault lazily (far
+// cheaper than vector's explicit zero-fill of 8.3 MB at 1080p, which
+// weighs on short-GOP workloads where decoders are created per GOP row,
+// e.g. gop_split).
 struct ZBuf {
   uint32_t* p = nullptr;
   size_t n = 0;
@@ -212,7 +212,7 @@ constexpr int STEP_FX = 16;
 // forward from the bucket's first symbol, so finer buckets would stay
 // bit-exact — but a 16x finer table measured net-SLOWER on entropy-bound
 // content (more L1 pressure from 256B/context tables + 16x costlier
-// rescale refills outweigh the shorter scans; BENCH_NOTES round 2).
+// rescale refills outweigh the shorter scans).
 constexpr int DSHIFT = 7;
 constexpr int DVAL = 1 << DSHIFT;
 
@@ -1156,8 +1156,8 @@ struct SpDecoder {
   std::vector<uint8_t> touched;
   std::vector<uint8_t> skipped_pre;  // per-frame pre-copy skip set
   // persistent capture scratch for the transport wrappers (bc/kmv/sparse):
-  // a fresh 228 KB/frame of zeroed vectors measured ~5% of the terminal-
-  // corpus host stage (round 4); decompress_p zeroes cap_mv/cap_rect
+  // a fresh 228 KB/frame of zeroed vectors is a visible share of the
+  // terminal-corpus host stage; decompress_p zeroes cap_mv/cap_rect
   // itself, so reuse needs no clearing here
   std::vector<int32_t> scr_cb, scr_cm, scr_cr;
   void ensure_scratch() {
@@ -1628,7 +1628,10 @@ int msv1_parse(const uint8_t* src, size_t len, int X, int Y,
     si += 2;
     if (is8 && a + b == 0) break;
     if ((b & 0xFC) == 0x84) {
+      // a zero count skips the rest of the frame (the decoder's countdown
+      // starts at -1 and never reaches 0 again)
       skip = ((b - 0x84) << 8) + a;
+      if (skip == 0) skip = (int)(nb - bi);
       continue;
     }
     if (b < 0x80) {
@@ -2500,7 +2503,7 @@ static void fill_paycode_i(int npix, const uint32_t* frame, uint32_t* pay) {
 // to (a) clear the blocks the plane's PREVIOUS occupant wrote and (b)
 // write its own non-copy blocks.  At screencast change densities this cuts
 // the fill from 8.3 MB/frame (1080p) to the changed blocks only — the fill
-// measured 84% of the host stage before (BENCH_NOTES.md round 2).
+// was most of the host stage before.
 
 static void clear_pay_block(int X, int Y, int nbx, long bi, uint32_t* pay) {
   int by = (int)(bi / nbx), bx = (int)(bi % nbx);
@@ -2857,7 +2860,7 @@ int sp_decompress_kmv2(void* p, const uint8_t* src, long len, int is_key,
   // no-change early-out BEFORE any scratch/memset work (mirrors
   // decompress_p's own r==1 conditions): on still-heavy screencasts
   // (~45% of terminal-corpus frames) the per-frame fixed cost drops to
-  // this test (VERDICT round-3 item 5)
+  // this test
   if (len == 0 || !d->decoded_i || src[0] == 0) return 1;
   d->ensure_scratch();
   int32_t *cb = d->scr_cb.data(), *cm = d->scr_cm.data(),
@@ -2887,7 +2890,7 @@ int sp_decompress_kmv(void* p, const uint8_t* src, long len, int is_key,
 // carries ONLY data-rect pixels, and bytes outside data rects are never
 // read.  Consequences for the host stage: no motion fills, no clears, no
 // dirty state — the fill cost collapses to the data pixels themselves
-// (VERDICT round-2 item 5: "skip payload capture for motion/still blocks").
+// ("skip payload capture for motion/still blocks").
 
 static void fill_bc_p(int X, int Y, int nbx, int nby, const int32_t* bts,
                       const int32_t* mv, const int32_t* rect,
@@ -3256,8 +3259,8 @@ const uint32_t* msv1_latest(void* p) { return ((Msv1Decoder*)p)->latest(); }
 // from the PRISTINE t-1 plane (np.roll wrap semantics), then paint data
 // rects from the pool and motion rects from the gathered scratch.  This
 // is the interactive-seek hot path (Main.hx:1220-1226 cost model): the
-// numpy compose paid ~4.5 ms per changed 1080p frame; this walk is pure
-// rect memcpy.
+// numpy compose paid a full-plane pass per changed 1080p frame; this
+// walk is pure rect memcpy.
 int lane_compose_range(uint32_t* plane, uint32_t* pool,
                        const uint32_t* units, int Y, int X, int Xp, int K,
                        int NB, int T, int t0, int t1,

@@ -1,7 +1,7 @@
 """Batched multi-stream decode: host command assembly + sharded device decode.
 
 This is the throughput pipeline the reference's single-stream Manager becomes
-on TPU (SURVEY.md §2 parallelism table):
+on the device (SURVEY.md §2 parallelism table):
 
   host:   demux → entropy/commands per stream  (codecs/*, loaders)
   device: shard_map over a (dp, gop) mesh — dp = independent streams,
@@ -62,8 +62,8 @@ def stack_msv1_commands(
                 src, X, Y, pal=pal
             )
     rs = lambda a: a.reshape(B, gops, Tg, *a.shape[2:])
-    # sel ships plane-ordered [.., Y, X] (device-side 4x4 relayout is 2x
-    # the paint kernel's cost on TPU — msv1_paint.sel_to_plane)
+    # sel ships plane-ordered [.., Y, X] (a device-side 4x4 relayout costs
+    # more than the paint itself — msv1_paint.sel_to_plane)
     return dict(btype=rs(bt), sel=rs(msv1_paint.sel_to_plane(sel, Y, X)),
                 colors=rs(col), changes=rs(chg))
 

@@ -25,7 +25,7 @@ from dataclasses import asdict, dataclass, field
 
 @dataclass
 class StreamCursor:
-    """Resumable position of one stream (SURVEY.md §5.4 TPU equivalent)."""
+    """Resumable position of one stream (SURVEY.md §5.4 equivalent)."""
 
     stream_id: str
     next_frame: int  # next frame index to decode

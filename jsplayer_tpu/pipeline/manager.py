@@ -63,7 +63,7 @@ class BufferState:
 
 def make_decoder(vi: VideoInfo, prefer_native: bool = True) -> VideoCodec:
     # Manager.video_info_cb codec select (Manager.hx:105-111); the native C++
-    # decoder is used when built (bit-exact twin, ~10x faster host decode)
+    # decoder is used when built (bit-exact twin, a much faster host decode)
     if vi.codec == CodecType.SCREENPRESSOR:
         if prefer_native:
             from .. import native as _native

@@ -6,8 +6,10 @@ is the framework's scaling substrate: batched multi-stream decode lays out
   * ``gop`` — keyframe-delimited GOPs within a stream (the sequence/context-
     parallel axis; GOPs are independent decode chains, the reference's only
     independent unit — DataLoader.GetNearestKeyframe, DataLoader.hx:125-132)
-over a `jax.sharding.Mesh`.  Collectives ride ICI via XLA from sharding
-annotations; nothing here issues explicit NCCL-style calls.
+over a `jax.sharding.Mesh`.  XLA derives the collectives from sharding
+annotations (NCCL on GPUs); nothing here issues explicit collective calls.
+The cards of one host are joined all to all, so the mesh follows the
+algorithm, not a physical topology.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ def make_mesh(
 
     Multi-host: `jax.devices()` already spans all processes after
     `jax.distributed.initialize()`; keep `gop` within one host's device count
-    so GOP-chain collectives ride ICI while the dp axis may cross hosts over
-    DCN (streams are independent — no cross-host traffic on dp)."""
+    so GOP-chain collectives stay on the host's own links while the dp axis
+    may cross hosts (streams are independent — no cross-host traffic on
+    dp)."""
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)
     if dp is None:
@@ -42,10 +45,11 @@ def make_mesh(
 def init_multihost(coordinator: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None) -> None:
-    """Multi-host (DCN) initialization wrapper — the framework's equivalent
-    of the reference's single transport (SURVEY.md §5.8: XHR only; here
-    jax.distributed handles cross-host coordination and XLA places
-    collectives on ICI within a slice / DCN across)."""
+    """Multi-host initialization wrapper — the framework's equivalent of
+    the reference's single transport (SURVEY.md §5.8: XHR only; here
+    jax.distributed handles cross-host coordination and XLA places the
+    collectives).  Pass all three arguments where no cluster manager
+    announces them."""
     import jax
 
     kwargs = {}

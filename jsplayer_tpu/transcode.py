@@ -118,9 +118,8 @@ def transcode_to_lane(avi_bytes: bytes, window: int = 64, K: int = 2,
     (_diff_commands) — one serving container for both reference codecs.
 
     payload: "raw" (default — uncoded u24 unit bytes, zero device entropy
-    work; measured round 4 as both smaller and faster than rans on every
-    corpus) or "rans" (renorm-aligned multi-lane rANS decoded on device
-    at ~2 Gsym/s — kept for layouts that genuinely compress under a
+    work; smaller than rans on every corpus) or "rans" (renorm-aligned
+    multi-lane rANS decoded on device — kept for layouts that genuinely compress under a
     static table).  compress=True deflates each window's bulk section at
     rest (zlib level 1; screen content shrinks ~10-30x).
 
@@ -161,8 +160,8 @@ def transcode_to_lane(avi_bytes: bytes, window: int = 64, K: int = 2,
         raise ValueError(f"transcode_to_lane: unsupported codec {vi.codec}")
     X, Y = vi.width, vi.height
     if n_lanes is None:
-        # 4096 lanes: 2,050 Msym/s on v5e (vs 1,474 @2048, 2,185 @8192 —
-        # the knee; wire cost per symbol is N-independent at 2 B/sym)
+        # 4096 lanes on full-HD planes: wide enough to fill the device's
+        # vector units (wire cost per symbol is N-independent at 2 B/sym)
         n_lanes = 4096 if X * Y >= (1 << 20) else 128
     nbx, nby = (X + 15) // 16, (Y + 15) // 16
     nb = nbx * nby
@@ -198,7 +197,7 @@ def transcode_to_lane(avi_bytes: bytes, window: int = 64, K: int = 2,
     # analog of seek-from-keyframe (Manager.hx:244-249) — so snapping
     # boundaries to source keyframes makes every GOP lead a clip-seek /
     # gop-shard entry point instead of chaining the whole file to one
-    # carry (measured: terminal-corpus Player seek p90 1.4 s → ~60 ms).
+    # carry.
     from .pipeline.gop import snap_window_starts
 
     if align == "keyframes":

@@ -1,4 +1,4 @@
-"""Benchmark content corpora (VERDICT round-2 item 3: de-synthetic-ize).
+"""Benchmark content corpora (realistic screen content, not synthetic noise).
 
 The bench headline historically used one fixed mix (1/3 scroll, 1/3 paint,
 1/3 still).  This module provides:

@@ -5,7 +5,7 @@ trace (MLog :8-14), an in-memory timed event log capped at 4000 entries
 (FastLog/TimedMsg :26-30, 42-62), and deferred rendering with deltas
 (FlushLog :32-39) — plus the ELog stamp helper (DataLoader.hx:413-422).
 
-TPU-era extensions: span() context manager for host-stage timing, counters
+Framework extensions: span() context manager for host-stage timing, counters
 for pipeline observability (bytes fetched / frames demuxed / decoded /
 output, buffer occupancy — SURVEY.md §5.5), and jax.profiler hooks for
 device traces.
@@ -82,7 +82,7 @@ class Log:
 
     @contextlib.contextmanager
     def span(self, name: str):
-        """Host-stage timing span (TPU-era replacement for the hand-placed
+        """Host-stage timing span (replacement for the hand-placed
         performance.now() pairs, Main.hx:1213-1226)."""
         t0 = time.monotonic()
         try:

@@ -14,7 +14,7 @@ Usage: python scripts/exp_seek_latency.py [T] [N] [--corpus video_call]
 
 --corpus video_call: DENSE content (every frame changed, mid entropy) —
 the corpus where the two paths diverge structurally: an AVI seek re-pays
-the legacy entropy wall per replayed frame (~30 fps/core), while the
+the legacy entropy wall per replayed frame, while the
 lane walk pays only rect paints (native compose).
 """
 

@@ -1,24 +1,20 @@
-"""Measured record: pricing the lane migration (VERDICT r4 item 3).
+"""Pricing the lane migration: transcode cost vs replay savings.
 
-The legacy SP host stage is entropy-bound on dense content (~37 fps/core
-on the video_call corpus — per-symbol adaptive-context semantics,
-ANS.hx:785-860), so serving such archives on the bc path caps a chip's
-feed at that rate forever.  `transcode_to_lane` pays that wall ONCE and
+The legacy SP host stage is entropy-bound on dense content (per-symbol
+adaptive-context semantics, ANS.hx:785-860), so serving such archives on
+the bc path caps a device's feed at the host's entropy rate forever.  `transcode_to_lane` pays that wall ONCE and
 replays are then wire-parse-speed on the host.  This script measures all
 three legs per corpus and prints the break-even replay count:
 
     N* = t_transcode / (t_legacy_replay - t_lane_replay_host)   [per frame]
 
-Timing discipline: time.process_time (CPU seconds — this container's
-vCPU sees multi-second steal bursts that corrupt wall clocks; see
-BENCH_NOTES round 5) with a warm-up pass and best-of-N.
+Timing discipline: time.process_time (CPU seconds — a shared vCPU's
+steal bursts corrupt wall clocks) with a warm-up pass and best-of-N.
 
 GOP parallelism: transcode_to_lane(jobs=N) splits at restart units
 (keyframe-led window runs) with byte-identical output — wall scales with
 cores, CPU-seconds stay ~flat, so the table's core-second pricing covers
-any --jobs choice.  Byte-identity is asserted here as a runtime check
-(nproc=1 in this container, so a wall-clock jobs curve is unmeasurable —
-the correctness contract is what this run can pin).
+any --jobs choice.  Byte-identity is asserted here as a runtime check.
 
 Usage: python scripts/exp_transcode_pricing.py [--frames 48]
 """

@@ -1,9 +1,8 @@
 """One-command fresh-seed fuzz campaign across every input surface.
 
-Round lesson (BENCH_NOTES round-4 log): mutation fuzz with FIXED seeds
-regresses to a checked set — every fresh-seed rerun this round found real
-bugs (2 SP native/oracle splits, 1 lane parser escape, 1 lane tiling
-escape).  This runner re-executes all campaign dimensions with a caller-
+Lesson: mutation fuzz with FIXED seeds regresses to a checked set — a
+fresh-seed rerun found real bugs (2 SP native/oracle splits, 1 lane parser
+escape, 1 lane tiling escape).  This runner re-executes all campaign dimensions with a caller-
 chosen seed block so future rounds do it in one command:
 
     python scripts/fuzz_campaign.py --seed 12345 --scale 1.0
@@ -261,7 +260,7 @@ def run_trunc(seed: int, scale: float) -> int:
 
 
 def run_web(seed: int, scale: float) -> int:
-    """Malformed-HTTP fuzz of the browser chrome (VERDICT r5 item 8):
+    """Malformed-HTTP fuzz of the browser chrome:
     junk paths/queries (incl. ?dom=... variants), hostile Host/Origin,
     Range garbage, /control JSON type confusion with a valid token,
     token-less and non-JSON POSTs, and raw-socket garbage.  Invariants:

@@ -1,6 +1,6 @@
 // gprof driver for the host bc stage on a DUMPED corpus (e.g. the
 // rendered terminal session — tiny per-frame deltas, the workload whose
-// per-frame fixed costs VERDICT round-3 item 5 targets).
+// per-frame fixed costs the bc path pays).
 //
 //   python scripts/dump_corpus.py terminal /tmp/term.blob
 //   g++ -O3 -march=native -std=c++17 -pg -pthread \

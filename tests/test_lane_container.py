@@ -1,6 +1,6 @@
 """Lane-container end-to-end: device entropy + recon for re-encoded streams.
 
-BASELINE config 4 (VERDICT round-2 item 1): an SP AVI is transcoded to the
+BASELINE config 4: an SP AVI is transcoded to the
 lane-container format (transcode.transcode_to_lane), whose payload rides
 interleaved rANS lanes; ingest with sp_device_path='lane' then runs BOTH
 entropy decode and reconstruction on device (kernels/lane_recon), and the
@@ -345,7 +345,7 @@ def test_lane_mutation_host_device_agree():
 def test_lane_wire_size_reasonable():
     """The container's payload should sit well below the dense paycode
     plane; raw+deflate (the default) must also undercut the rans wire —
-    the round-4 A/B that made raw the default (VERDICT r3 item 2)."""
+    the size comparison that made raw the default."""
     X, Y, T = 64, 48, 8
     avi, _ = make_avi(2, X, Y, T)
     cont = transcode_to_lane(avi, window=8)
@@ -818,9 +818,9 @@ def _record_flags(wire: bytes) -> int:
 
 
 def test_lane_subunit_wire_flag_and_parity():
-    """Sub-unit payload encoding (wire flag bit6, round 4): repetitive
-    screen content's 8-px spans dedup (scripts/exp_lane_subunits.py:
-    terminal payload 1.81 MB -> ~0.39 MB), the parser expands back to the
+    """Sub-unit payload encoding (wire flag bit6): repetitive
+    screen content's 8-px spans dedup (terminal payload 1.81 MB ->
+    ~0.39 MB), the parser expands back to the
     canonical [U, 3, 128], and decode stays bit-exact.  Compressed and
     uncompressed wires must parse to identical payload fields."""
     X, Y, T = 64, 48, 10

@@ -1,4 +1,4 @@
-"""Malformed/adversarial stream handling (ADVICE round-1 fixes).
+"""Malformed/adversarial stream handling.
 
 Untrusted streams must never write outside the frame buffer or crash the
 batch: the subrect guard (ScreenPressor.hx:375-386 decoded values can point

@@ -246,6 +246,41 @@ def test_device_parity_random_opcodes(bits, seed):
         assert bool(sigs[t]) == bool(oracle_sigs[t]), f"sig {t} ({bits}-bit)"
 
 
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("parser", ["python", "native"])
+def test_zero_count_skip_token_matches_oracle(bits, parser):
+    """A skip token whose count is 0 (a=0, b=0x84) makes the decoder's
+    countdown start at -1, so every later block of the frame is skipped and
+    the tokens after it are never read.  The device's command parse must
+    paint exactly what the oracle paints."""
+    from jsplayer_tpu import native as _native
+
+    if parser == "native" and not _native.available():
+        pytest.skip("native unavailable")
+    parse = parse_commands if parser == "python" else \
+        _native.native_msv1_parse
+    rng = np.random.default_rng(9)
+    pal_u32 = make_pal8(rng) if bits == 8 else None
+    one_color = (bytes([0x12, 0x80]) if bits == 8
+                 else bytes([0x34, 0x92]))                 # b >= 0x80
+    src = one_color * 5 + bytes([0x00, 0x84]) + one_color * 20
+    dec = (MSVideo1_16bit(X, Y) if bits == 16 else
+           MSVideo1_8bit(X, Y, pal_u32.astype("<u4").tobytes()))
+    dec.preinit(0)
+    prev = dec.decompress_p(random_stream_16(rng, X, Y, False) if bits == 16
+                            else random_stream_8(rng, X, Y, False),
+                            np.zeros(NPIX, np.uint32)).data.copy()
+    want = dec.decompress_p(src, np.zeros(NPIX, np.uint32)).data
+    bt, sel, col, _ = parse(src, X, Y, pal=pal_u32)
+    assert list(np.nonzero(bt)[0]) == [0, 1, 2, 3, 4]
+    got = prev.reshape(Y, X).copy()
+    for bi in np.nonzero(bt)[0]:
+        by, bx = divmod(int(bi), X // 4)
+        got[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = \
+            col[bi][sel[bi]].reshape(4, 4)
+    np.testing.assert_array_equal(got.reshape(-1), want)
+
+
 def test_device_parity_encoded_chain():
     from jsplayer_tpu.kernels.msv1_paint import decode_sequence
     import jax.numpy as jnp

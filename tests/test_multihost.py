@@ -1,12 +1,12 @@
-"""Multi-host (DCN) path: a REAL 2-process jax.distributed cluster.
+"""Multi-host path: a REAL 2-process jax.distributed cluster.
 
-VERDICT round-1 Missing #4 / item 9: ``pipeline.mesh.init_multihost`` was
+Why: ``pipeline.mesh.init_multihost`` was
 an untested wrapper.  This test spawns two worker processes that each
 initialize through it (CPU backend, 2 virtual devices per process), build
 one (dp=4, gop=1) mesh SPANNING both processes, run the sharded kmv decode
 step, verify their addressable output shards bit-exactly against the host
 oracle, and run a cross-process psum — Gloo over localhost standing in for
-DCN.  The reference's only transport was XHR (SURVEY.md §5.8); this is the
+the cross-host network.  The reference's only transport was XHR (SURVEY.md §5.8); this is the
 framework's cross-host substrate actually exercised end-to-end.
 """
 

@@ -398,7 +398,7 @@ def test_native_kmv_dirty_incremental_fill_matches_full():
     """Incremental paycode fills (dirty-block tracking) must leave the
     plane bitwise-identical to a stateless full fill, across plane reuse
     with DIFFERENT content, I→P transitions, and stills (spdec.cpp
-    fill_paycode_p; the fill measured 84% of the host stage at 1080p)."""
+    fill_paycode_p; the fill was most of the host stage at 1080p)."""
     from jsplayer_tpu import native
 
     if not native.available():

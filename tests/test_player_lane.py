@@ -237,7 +237,7 @@ def test_lane_cold_seek_reuses_cached_exit_carries(monkeypatch):
     """A cold mid-chain seek rebuilds the carry chain from the restart
     window ONCE; every exit plane computed on the way is parked in the
     codec's LRU, so a repeat seek into the same region does zero
-    window_carry work (the dense-corpus seek table's one 569 ms cold
+    window_carry work (the dense-corpus seek table's cold
     outlier — Main.hx:1220-1226's cost model).  Also pins correctness
     under forced eviction (budget of one plane)."""
     import jsplayer_tpu.codecs.lane_host as lh

@@ -1,4 +1,4 @@
-"""ScreenPressor differential evidence (VERDICT round-2 item 4).
+"""ScreenPressor differential evidence.
 
 Three holes closed against the strongest available independent
 implementation (FFmpeg's scpr, versions 1-3):

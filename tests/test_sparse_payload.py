@@ -1,4 +1,4 @@
-"""Sparse payload transport: pack → MXU one-hot scatter → bit-exact frames."""
+"""Sparse payload transport: pack → integer block scatter → bit-exact frames."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -67,3 +67,27 @@ def test_sparse_decode_bit_exact():
     for t, g in enumerate(golds):
         np.testing.assert_array_equal(frames[t].reshape(-1), g,
                                       err_msg=f"frame {t}")
+
+
+def test_unpack_payload_exact_for_wide_pixels():
+    """Every 24-bit pixel, including values ≥ 2^11 that a float product in
+    reduced precision would round, comes back bit-exact; padding entries
+    (-1) touch no block and no float op is involved."""
+    import jax
+
+    nb = (Y // 16) * (X // 16)
+    rng = np.random.default_rng(5)
+    tiles = rng.integers(1 << 11, 1 << 24, (6, 256)).astype(np.uint32)
+    tiles[0, :3] = [(1 << 24) - 1, (1 << 11) + 1, (1 << 23) + 1]
+    blocks = np.array([0, 3, nb - 1, 9, -1, -1], np.int32)
+    jaxpr = str(jax.make_jaxpr(lambda t, b: unpack_payload(t, b, nb, Y, X))(
+        jnp.array(tiles), jnp.array(blocks)))
+    assert "f32" not in jaxpr and "dot_general" not in jaxpr
+    dense = np.asarray(unpack_payload(jnp.array(tiles), jnp.array(blocks),
+                                      nb, Y, X))
+    d4 = dense.reshape(Y // 16, 16, X // 16, 16).transpose(0, 2, 1, 3)
+    d4 = d4.reshape(nb, 256)
+    for k, bi in enumerate(blocks[:4]):
+        np.testing.assert_array_equal(d4[bi], tiles[k])
+    others = np.setdiff1d(np.arange(nb), blocks[:4])
+    assert (d4[others] == 0).all()

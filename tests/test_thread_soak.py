@@ -1,14 +1,12 @@
-"""Host thread-pool concurrency soak (VERDICT round-2 item 8).
+"""Host thread-pool concurrency soak.
 
-This container has ONE core, so these soaks cannot measure parallel
-throughput — they oversubscribe the pool (threads >> cores) to force
+These soaks do not measure parallel throughput — they oversubscribe the pool (threads >> cores) to force
 preemption at arbitrary interleavings and flush synchronization bugs the
 single-thread CI can't see (SURVEY.md §5.2: real threads need real
 discipline).  Every multi-threaded result must be bit-identical to the
 single-threaded one, including across repeated runs and with malformed
 streams mixed into the batch (the per-stream error paths must not poison
-neighbors).  Multi-core *scaling* remains unmeasured on this hardware —
-documented in BENCH_NOTES.md.
+neighbors).  Multi-core *scaling* is not measured here.
 """
 
 import numpy as np
